@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Hidden-point-removal demo (parity with `notebooks/hidden_points_removal.ipynb`,
 per the reference's configuration list: single-pose Katz HPR on one sample
-cloud). Compares the three tiers — exact Qhull, TPU support-sampling, and the
+cloud). Compares the three tiers — exact Qhull, on-device support sampling, and the
 differentiable soft mask — and reports agreement + timings.
 """
 import os
@@ -43,7 +43,7 @@ def main():
     approx = np.asarray(hpr_mask_approx(P)) > 0.5
     t_approx = time.perf_counter() - t0
     agree_a = (approx == exact).mean()
-    print(f"approx (TPU support):   {approx.sum():6d} visible   {1000*t_approx:8.1f} ms   agreement {agree_a:.3f}")
+    print(f"approx (on device):    {approx.sum():6d} visible   {1000*t_approx:8.1f} ms   agreement {agree_a:.3f}")
 
     soft = np.asarray(hpr_mask_soft(P))
     t0 = time.perf_counter()

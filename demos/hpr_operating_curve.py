@@ -7,7 +7,7 @@ ONE compile per scene (both knobs traced, combos vmapped), then evaluates
 the production binned kernel (cap/safety variants) at the chosen operating
 point on the full clouds. Output: markdown tables (PARITY.md §soft-HPR).
 
-Run: python demos/hpr_operating_curve.py          (TPU if available)
+Run: python demos/hpr_operating_curve.py          (GPU if available)
      JAX_PLATFORMS=cpu python demos/...           (slow but works)
 """
 from __future__ import annotations
@@ -143,11 +143,11 @@ def main():
                 jnp.asarray(cam), sharpness=float(s_b), tau=float(t_b),
                 cap=cap, safety=safety, stratified_coverers=False))
             tp, fp, fn = prf(vis > 0.5, truth)
-            tpu_, fpu, _ = prf(vis_u > 0.5, truth)
+            tp_u, fp_u, _ = prf(vis_u > 0.5, truth)
             p = tp / max(tp + fp, 1)
             r = tp / max(tp + fn, 1)
             agree = ((vis > 0.5) == truth).mean()
-            pu = tpu_ / max(tpu_ + fpu, 1)
+            pu = tp_u / max(tp_u + fp_u, 1)
             print(f"| cloud10-wp{wp} | {cap} | {safety:g} | {p:.3f} "
                   f"| {r:.3f} | {agree:.3f} | {pu:.3f} |", flush=True)
 

@@ -10,8 +10,7 @@ mean optimization and publication times.
 Run: python demos/pose_optimization_demo.py [opt_steps=400] [lr_pose=0.1] ...
 Pass ``soft_hpr=1`` for occlusion-aware optimization: differentiable Katz
 HPR *inside* the loss (the reference's own TODO — its Qhull HPR runs on
-detached tensors and cannot be differentiated; ~99 ms/step at 40k points
-on a v5e chip).
+detached tensors and cannot be differentiated).
 """
 import os
 import sys

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Offline scene visualization — the rviz-substitute.
 
-The reference ships seven .rviz view configs; headless TPU machines have no
+The reference ships seven .rviz view configs; headless accelerator hosts have no
 rviz, so this renders the same views to PNG: the point cloud colored by the
 rewards/intensity channel, the initial and optimized trajectories, and the
 camera frusta. Consumes live bus topics or runs standalone on the sample

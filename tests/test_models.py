@@ -172,7 +172,7 @@ def test_traj_soft_hpr_suppresses_occluded_points():
     quats0 = identity_quaternions(2)
     params = init_traj_params(poses0, quats0)
     kw = dict(img_width=INTR.width, img_height=INTR.height,
-              min_dist=1.0, max_dist=12.0, backend="xla")
+              min_dist=1.0, max_dist=12.0)
     prob_plain = TrajProblem(**kw)
     prob_hpr = TrajProblem(**kw, soft_hpr=True)
     K = INTR.matrix()
@@ -206,7 +206,7 @@ def test_traj_soft_hpr_gradients_and_optimizes():
     params = init_traj_params(poses0, quats0)
     prob = TrajProblem(img_width=INTR.width, img_height=INTR.height,
                        min_dist=1.0, max_dist=12.0, soft_hpr=True)
-    prob_plain = dataclasses.replace(prob, soft_hpr=False, backend="xla")
+    prob_plain = dataclasses.replace(prob, soft_hpr=False)
     K = INTR.matrix()
 
     def loss_fn(p, problem=prob):

@@ -1,13 +1,12 @@
-"""Real multi-process test of parallel.multihost (VERDICT round-1 weak #9,
-CLAUDE.md round-3 gap #1).
+"""Real multi-process test of parallel.multihost.
 
-No multi-host TPU exists in this environment, but the *software* path —
-jax.distributed.initialize, a mesh spanning processes, cross-process
-collectives, make_array_from_process_local_data — is hardware-agnostic: on
-CPU the inter-process collectives ride Gloo instead of DCN. Two spawned
-processes with 2 virtual devices each run the full sharded-Pallas production
-train step (reference capability: `src/model.py:244-260`'s criterion chain,
-here at beyond-one-host scale) and must match the single-device result.
+The multi-host *software* path — jax.distributed.initialize, a mesh
+spanning processes, cross-process collectives,
+make_array_from_process_local_data — is hardware-agnostic: on CPU the
+inter-process collectives ride Gloo instead of NCCL. Two spawned processes
+with 2 virtual devices each run the full sharded train step (reference
+capability: `src/model.py:244-260`'s criterion chain, here at
+beyond-one-host scale) and must match the single-device result.
 """
 import os
 import socket
@@ -84,7 +83,7 @@ def test_two_process_occlusion_aware_pose_step(tmp_path):
     """The occlusion-aware sharded pose loss/step over a REAL 2-process
     jax.distributed runtime: the differentiable binned-HPR candidate
     exchange is an all_gather per grid that here genuinely crosses
-    processes over Gloo (the DCN stand-in). Init loss must match the
+    processes over Gloo (the NCCL stand-in). Init loss must match the
     single-chip pose_forward(soft_hpr=True) binned tier, and two Adam
     steps must stay finite."""
     _run_workers(tmp_path, "pose")

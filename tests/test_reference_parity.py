@@ -214,7 +214,7 @@ def test_traj_loss_terms_and_grads_match_reference_execution(ref, cloud10, path1
     loss_t = model(vis_wps_dist=0.5)
     loss_t.backward()
 
-    prob = TrajProblem(img_width=IMG_W, img_height=IMG_H, wps_step=step, backend="xla")
+    prob = TrajProblem(img_width=IMG_W, img_height=IMG_H, wps_step=step)
     (loss_j, aux), g = jax.jit(
         jax.value_and_grad(
             lambda p: traj_forward(
@@ -251,7 +251,6 @@ def test_traj_values_match_reference_at_exact_init(ref, cloud10, path10):
     loss_t = model(vis_wps_dist=0.5)
     prob = TrajProblem(
         img_width=IMG_W, img_height=IMG_H, wps_step=waypoint_stride(path10),
-        backend="xla",
     )
     loss_j, aux = jax.jit(
         lambda p: traj_forward(
@@ -363,7 +362,6 @@ def test_traj_adam_curve_matches_reference(ref, cloud10, path10):
 
     prob = TrajProblem(
         img_width=IMG_W, img_height=IMG_H, wps_step=waypoint_stride(path10),
-        backend="xla",
     )
     tx = make_optimizer(OptimizerConfig(lr_pose=0.12, lr_quat=0.05))
     params = {"poses": jnp.asarray(poses_init), "quats": jnp.asarray(quats0)}

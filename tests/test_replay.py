@@ -67,7 +67,7 @@ def test_player_loop_start_duration(tmp_path):
 
 
 def test_record_device_array_image(tmp_path):
-    """On TPU, renderer nodes publish ImageMsg with an on-device payload;
+    """On an accelerator, renderer nodes publish ImageMsg with an on-device payload;
     recording one must force the host copy, not mis-route the array into
     the JSON scalars (found in review: jax.Array is not np.ndarray)."""
     import jax.numpy as jnp

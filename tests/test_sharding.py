@@ -149,38 +149,6 @@ def test_multihost_helpers_on_virtual_mesh():
     np.testing.assert_allclose(np.asarray(P), pts)
 
 
-def test_sharded_train_step_rejects_soft_hpr_on_pallas(mesh):
-    """The fused-Pallas kernel has no occlusion input: asking for soft_hpr on
-    the 'pallas' backend must raise (silently training the non-occlusion loss
-    would be a lie), pointing at the occlusion-aware traj_sharded step."""
-    import dataclasses
-
-    prob = dataclasses.replace(
-        TrajProblem(img_width=INTR.width, img_height=INTR.height),
-        soft_hpr=True, backend="pallas")
-    with pytest.raises(ValueError, match="make_sharded_traj_step"):
-        make_sharded_train_step(mesh, prob, OptimizerConfig())
-
-
-def test_sharded_fused_lo_sum_rejects_partial_mesh(cloud10, path10):
-    """A mesh without both ('wps', 'pts') axes must fail with a clear error,
-    not an opaque unbound-axis trace failure."""
-    from jax.sharding import Mesh
-
-    from trajectory_optimization_tpu.parallel.sharded_pallas import (
-        pad_multiple, sharded_fused_lo_sum)
-    from trajectory_optimization_tpu.utils.data import pad_points
-
-    pts_only = Mesh(np.array(jax.devices()[:8]), ("pts",))
-    padded, valid = pad_points(cloud10, pad_multiple(pts_only) * 5)
-    quats = identity_quaternions(len(path10))
-    with pytest.raises(ValueError, match="'wps', 'pts'"):
-        sharded_fused_lo_sum(
-            pts_only, jnp.asarray(padded), jnp.asarray(quats),
-            jnp.asarray(path10), INTR.matrix(), INTR.width, INTR.height,
-            valid=jnp.asarray(valid))
-
-
 def test_initialize_distributed_reraises_real_failures(monkeypatch):
     """Only the benign double-init RuntimeError may be swallowed; genuine
     distributed-init failures (bad coordinator, timeout) must fail fast."""

@@ -51,8 +51,7 @@ def test_binary_visibility_count_nonzero(centered_cloud):
 def test_binary_visibility_count_matches_f64_oracle(centered_cloud):
     """Exact count parity vs an independent float64 pipeline: the border
     tests are strict inequalities, so this pins the precision='highest'
-    matmuls (review finding — bf16 skews pixels ~4 px and flips them;
-    verified exact on TPU: 9078 == 9078 on the full cloud)."""
+    matmuls (review finding — bf16 skews pixels ~4 px and flips them)."""
     import math
 
     from trajectory_optimization_tpu.utils.intrinsics import default_intrinsics

@@ -152,7 +152,7 @@ def test_evaluate_trajectory_census(rng):
     pts = np.concatenate([front, behind])
     poses = np.array([[0, 0, 0], [0.2, 0, 0]], np.float32)
     quats = np.tile(np.array([1.0, 0, 0, 0], np.float32), (2, 1))
-    problem = TrajProblem(img_width=W, img_height=H, backend="xla")
+    problem = TrajProblem(img_width=W, img_height=H)
     res = evaluate_trajectory(pts, poses, quats, K, problem)
     assert res.rewards.shape == (128,)
     # far-behind points: no waypoint observes them -> exactly the 0.5 prior
@@ -183,7 +183,7 @@ def test_evaluate_valid_mask_excludes_padding(rng):
     valid = np.concatenate([np.ones(32, np.float32), np.zeros(16, np.float32)])
     poses = np.zeros((2, 3), np.float32)
     quats = np.tile(np.array([1.0, 0, 0, 0], np.float32), (2, 1))
-    problem = TrajProblem(img_width=W, img_height=H, backend="xla")
+    problem = TrajProblem(img_width=W, img_height=H)
     res_pad = evaluate_trajectory(padded, poses, quats, K, problem, valid=valid)
     res_ref = evaluate_trajectory(pts, poses, quats, K, problem)
     assert res_pad.n_observed == res_ref.n_observed
@@ -392,10 +392,10 @@ def test_evaluate_improves_after_optimization(cloud10, path10):
     from trajectory_optimization_tpu.api import TrajectoryOptimizer
 
     pts = cloud10[::8]  # keep CPU-suite cost down; same geometry
-    opt = TrajectoryOptimizer(backend="xla")
+    opt = TrajectoryOptimizer()
     res = opt.optimize(pts, path10, n_steps=60)
     problem = TrajProblem(
-        img_width=opt.intr.width, img_height=opt.intr.height, backend="xla"
+        img_width=opt.intr.width, img_height=opt.intr.height
     )
     quats0 = np.tile(np.array([1.0, 0, 0, 0], np.float32), (len(path10), 1))
     ev0 = evaluate_trajectory(pts, path10, quats0, opt.intr.matrix(), problem)

@@ -1,23 +1,23 @@
-"""trajectory_optimization_tpu — TPU-native perception-aware trajectory optimization.
+"""trajectory_optimization_tpu — perception-aware trajectory optimization in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 ctu-vras/trajectory_optimization (IEEE RA-L 2022, DOI 10.1109/LRA.2022.3147332):
 optimize a camera pose or a trajectory of waypoint poses to maximize the number
 of point-cloud points visible in the camera frustum, by gradient descent through
 a differentiable visibility model.
 
-Architecture (TPU-first, not a port):
+Architecture (batched and compiled, not a port):
   - ``ops``      — geometry/visibility kernels: quaternions, SE(3), smooth &
                    binary frustum masks, hidden-point removal, point-splat
                    rendering, voxelization. Batched over waypoints/cameras and
-                   expressed as matmuls + fused elementwise for the MXU/VPU.
+                   expressed as matmuls + fused elementwise ops.
   - ``models``   — pose & trajectory visibility models (pure functions of a
                    parameter pytree; waypoints are a vmapped batch axis, not a
                    Python loop).
   - ``opt``      — jitted Adam/optax optimization engine with per-group LRs,
                    exponential decay, and on-device early stopping.
   - ``parallel`` — jax.sharding Mesh / shard_map scale-out over the point axis
-                   (ICI collectives for global reductions), vmapped multi-camera.
+                   (collectives for global reductions), vmapped multi-camera.
   - ``bus``      — host-side scene bus replacing ROS: typed messages, topics,
                    approximate-time pairing, frame graph, replay feeders.
   - ``utils``    — configs, intrinsics, data loading/padding, profiling.

@@ -64,7 +64,6 @@ class TrajectoryOptimizer:
         lr_pose: float = 0.1,
         lr_quat: float = 0.0,
         vis_wps_dist: float = 0.5,
-        backend: str = "auto",
         soft_hpr: bool = False,
     ):
         self.intr = intrinsics or default_intrinsics()
@@ -72,7 +71,6 @@ class TrajectoryOptimizer:
         self.smoothness_weight, self.length_weight = smoothness_weight, length_weight
         self.opt_cfg = OptimizerConfig(lr_pose=lr_pose, lr_quat=lr_quat)
         self.vis_wps_dist = vis_wps_dist
-        self.backend = backend
         # per-waypoint differentiable occlusion inside the loss (models.traj)
         self.soft_hpr = soft_hpr
 
@@ -104,8 +102,7 @@ class TrajectoryOptimizer:
         run = traj_runner(problem, self.opt_cfg, stop, int(n_steps))
         params = warm_start or init_traj_params(path, quats_wxyz)
         params, n_iters, loss, aux = run(params, P, V, K, p0, q0)
-        # ONE batched device→host fetch (each separate fetch pays a device
-        # round trip; this result needs eight values)
+        # ONE batched device→host fetch for the eight values this result needs
         f = jax.device_get(
             {
                 "poses": params["poses"], "quats": params["quats"],
@@ -145,7 +142,6 @@ class TrajectoryOptimizer:
             wps_step=int(wps_step) if wps_step is not None
             else waypoint_stride(path, self.vis_wps_dist),
             soft_hpr=self.soft_hpr,
-            backend=self.backend,
         )
 
     def evaluate(self, points, path, quats_wxyz=None, *, wps_step=None):
@@ -193,7 +189,7 @@ class PoseOptimizer:
         once at the initial pose (the reference's behavior). ``soft_hpr``
         instead differentiates THROUGH Katz occlusion recomputed every step
         (the reference's TODO) — clouds over 32k points use the
-        direction-binned O(N·cap) relaxation, verified on chip to 1M."""
+        direction-binned O(N·cap) relaxation, tested to 1M."""
         self.intr = intrinsics or default_intrinsics()
         self.problem_kw = dict(min_dist=min_dist, max_dist=max_dist,
                                soft_hpr=soft_hpr)
@@ -233,7 +229,7 @@ class PoseOptimizer:
         f = jax.device_get(
             {"trans": params["trans"], "quat": params["quat"], "loss": loss,
              "observations": aux["observations"]}
-        )  # one round trip instead of four
+        )  # one batched fetch instead of four
         q = np.asarray(f["quat"], np.float64).reshape(4)
         return PoseResult(
             position=np.asarray(f["trans"], np.float64).reshape(3),

@@ -3,7 +3,7 @@
 The reference's primary observability is rviz subscribed to the live graph
 (`launch/pointcloud_processor.launch:20`, the seven curated view configs in
 `config/*.rviz`): you watch the rewards cloud recolor and the optimized
-path move while the optimizer runs. TPU hosts are headless, so this node
+path move while the optimizer runs. Accelerator hosts are headless, so this node
 serves the same live view over HTTP instead of a GL window:
 
 - subscribe to the cloud, rewards-cloud and path topics on the scene bus;

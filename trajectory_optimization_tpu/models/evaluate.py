@@ -8,9 +8,9 @@ in OctoMap." The reference has no dedicated evaluation entry point — it runs
 ModelTraj's forward pass and inspects `rewards` (`src/model.py:200-242`);
 this module makes that a first-class, gradient-free surface.
 
-Evaluation is exactly one forward of the trajectory model (all backends —
-fused Pallas, XLA, per-waypoint soft-HPR occlusion — via
-``TrajProblem.backend``), plus the observed-point census: with the
+Evaluation is exactly one forward of the trajectory model (with or without
+the per-waypoint soft-HPR occlusion of ``TrajProblem.soft_hpr``), plus the
+observed-point census: with the
 reference's [0.5, 1−eps] observation clip, a point NO waypoint sees
 accumulates zero log-odds and lands at fused probability exactly σ(0) = 0.5,
 so "observed" is the strict test reward > 0.5. "Voxels" in the README are

@@ -1,6 +1,6 @@
 """Single-pose visibility optimization model.
 
-TPU-native counterpart of the reference ``ModelPose``
+Counterpart of the reference ``ModelPose``
 (`src/model.py:65-127`): a pure function of a parameter pytree
 {'trans': (1,3), 'quat': (1,4)} instead of an nn.Module, so it composes with
 jax.grad / jit / vmap / shard_map. The forward pass is the fused visibility
@@ -34,7 +34,7 @@ class PoseProblem:
     reference's TODO asked for (`src/tools.py:61-62`; its HPR is a detached
     CPU Qhull call, and — bug — evaluated in the world frame). Clouds over
     32k points route through the direction-binned O(N·cap) relaxation
-    (ops.hpr.hpr_mask_soft_binned — verified on chip to 1M points); the
+    (ops.hpr.hpr_mask_soft_binned, tested to 1M points); the
     dense O(N²) form serves small clouds. ``occlusion_mask`` remains for
     clouds where a static world-frame gate suffices.
     """

@@ -1,6 +1,6 @@
 """Trajectory visibility optimization model.
 
-TPU-native counterpart of the reference ``ModelTraj`` (`src/model.py:158-260`).
+Counterpart of the reference ``ModelTraj`` (`src/model.py:158-260`).
 The reference evaluates visibility waypoint-by-waypoint in a sequential Python
 loop (its own TODO asks for batching, `src/model.py:210`); here the selected
 waypoints are a leading batch axis of one fused evaluation — two batched
@@ -48,15 +48,12 @@ class TrajProblem:
     length_weight: float = 0.02
     eps: float = 1e-6
     wps_step: int = 1  # evaluate visibility at every wps_step-th waypoint
-    # 'auto' → fused Pallas kernel on TPU, XLA elsewhere; 'pallas'/'xla' force
-    backend: str = "auto"
     # Differentiable Katz occlusion inside the loss, recomputed per selected
     # waypoint on that waypoint's camera-frame points — the trajectory-wide
     # generalization of the pose model's soft HPR (the reference has NO
     # occlusion in ModelTraj at all; its TODO `src/tools.py:61-62` wanted a
-    # differentiable HPR even for the single pose). Forces the XLA scores
-    # path (the fused Pallas kernel has no occlusion input); clouds over 32k
-    # points use the direction-binned O(N·cap) relaxation per waypoint.
+    # differentiable HPR even for the single pose). Clouds over 32k points
+    # use the direction-binned O(N·cap) relaxation per waypoint.
     soft_hpr: bool = False
     # Largest cloud the dense O(N²) soft HPR serves before routing to the
     # binned O(N·cap) kernel. Lower it to force the binned kernel (e.g. to
@@ -66,11 +63,11 @@ class TrajProblem:
     # Binned-kernel knobs (ops.hpr.hpr_mask_soft_binned cap/safety): cap is
     # the per-bin coverer budget AND the tile edge — the per-step cost is
     # ~(n_bins + N/cap)·cap² pair ops per waypoint, so smaller caps are
-    # materially faster when typical bin occupancy is well under cap (the
-    # 40k reference cloud: ~400 pts/bin — cap=512 measured 504→380 ms/step
-    # per-step-routed with grad parity 4e-7 vs 1024; the frozen-plan
-    # engine packs bins so cap just sets its tile edge). Fidelity vs cap
-    # is measured in the soft-HPR operating curve (PARITY.md).
+    # cheaper when typical bin occupancy is well under cap (the 40k
+    # reference cloud holds ~400 pts/bin; cap=512 keeps grad parity 4e-7
+    # against 1024; the frozen-plan engine packs bins so cap just sets its
+    # tile edge). Fidelity vs cap is measured in the soft-HPR operating
+    # curve (PARITY.md).
     hpr_cap: int = 512
     hpr_safety: float = 3.0
 
@@ -250,24 +247,7 @@ def traj_forward(
     poses, quats = params["poses"], params["quats"]
     sel = slice(None, None, problem.wps_step)
 
-    backend = problem.backend
     if problem.soft_hpr:
-        if backend == "pallas":
-            # the fused Pallas kernel has no occlusion input; honor soft_hpr
-            # but tell the user their explicit backend choice is overridden
-            import warnings
-
-            warnings.warn(
-                "TrajProblem(backend='pallas', soft_hpr=True): soft HPR "
-                "requires the XLA scores path; the explicit Pallas backend "
-                "request is ignored.",
-                stacklevel=2,
-            )
-        backend = "xla_hpr"
-    elif backend == "auto":
-        backend = "pallas" if jax.default_backend() != "cpu" else "xla"
-
-    if backend == "xla_hpr":
         # Occlusion-aware trajectory visibility: every selected waypoint gets
         # its own differentiable HPR gate on ITS camera-frame cloud, applied
         # to the raw scores before normalization — occluded points collapse
@@ -286,26 +266,9 @@ def traj_forward(
             jnp.zeros(points.shape[0], jnp.float32),
             (quats[sel], poses[sel]),
         )
-    elif backend == "pallas":
-        # fused Pallas kernel: no (W, N) intermediate ever touches HBM, and
-        # the backward is a single hand-derived pass (ops.pallas_vis).
-        from trajectory_optimization_tpu.ops.pallas_vis import fused_lo_sum
-
-        lo_sum = fused_lo_sum(
-            points,
-            quats[sel],
-            poses[sel],
-            K,
-            problem.img_width,
-            problem.img_height,
-            min_dist=problem.min_dist,
-            max_dist=problem.max_dist,
-            eps=problem.eps,
-            valid=valid,
-        )
     else:
-        # XLA path. jax.checkpoint: the (W, N) score/log-odds intermediates
-        # would otherwise be saved as autodiff residuals (~10 × W·N·4 bytes of
+        # jax.checkpoint: the (W, N) score/log-odds intermediates would
+        # otherwise be saved as autodiff residuals (~10 × W·N·4 bytes of
         # HBM traffic on the backward pass); rematerializing them costs one
         # cheap fused forward recompute.
         @jax.checkpoint
@@ -340,8 +303,8 @@ def traj_criterion(
 
     The tail of the reference criterion (`src/model.py:237,244-260`): rewards
     = σ(Σ log-odds), then visibility + first-waypoint anchor + smoothness +
-    length terms. Split out so both the single-device backends (traj_forward)
-    and the sharded fused-Pallas path (parallel.sharded) share it.
+    length terms. Split out so the sharded steps share it with
+    traj_forward.
     """
     rewards = 1.0 / (1.0 + jnp.exp(-lo_sum))  # σ(Σ log-odds), `src/model.py:237`
 

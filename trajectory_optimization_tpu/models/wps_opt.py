@@ -8,7 +8,7 @@ run once per waypoint, with the pose restricted to planar translation plus a
 rotation about the world vertical (the robot stays on its path plane and
 only re-aims the camera).
 
-TPU-first design: the reference applies the pose optimizations
+Batched design: the reference applies the pose optimizations
 *consequently* (a Python loop of independent single-pose problems). The
 problems share no parameters and no loss terms, and Adam's update is
 elementwise per parameter — so optimizing all W waypoints in ONE batched

@@ -1,12 +1,12 @@
 """SE(3) transforms, pinhole projection, and differentiable visibility masks.
 
-This is the TPU-first rewrite of the reference visibility kernels
+This is the batched rewrite of the reference visibility kernels
 (`src/model.py:13-57` — get_dist_mask / get_fov_mask / to_camera_frame — and
 `src/tools.py:176-187` — get_cam_frustum_pts). The reference applies a
 quaternion rotation per point and loops over waypoints in Python
 (`src/model.py:217`); here the whole (W waypoints × N points) evaluation is a
 pair of batched (N,3)x(3,3) matmuls (world→camera, then camera→pixel via Kᵀ)
-plus fused VPU elementwise math, with waypoints as a leading batch axis. XLA
+plus fused elementwise math, with waypoints as a leading batch axis. XLA
 fuses the mask chain into the matmul epilogue; no per-point Python exists.
 
 Semantics are numerically matched to the reference, including its quirks:
@@ -37,7 +37,7 @@ def to_camera_frame(
     cam = R(q)⁻¹ · (p − t), with q unit-normalized first (reference
     `src/model.py:50-57`). Batched: ``quats`` (..., 4) and ``trans`` (..., 3)
     share leading axes; the result is (..., N, 3). The rotation is applied as
-    a single (N,3)@(3,3) matmul per camera so the MXU does the work.
+    a single (N,3)@(3,3) matmul per camera.
 
     Args:
       points: (N, 3) world points.
@@ -48,8 +48,8 @@ def to_camera_frame(
     q = jnp.atleast_2d(quats)
     t = jnp.atleast_2d(trans)
     R = quat_ops.to_matrix(quat_ops.normalize(q))  # (W, 3, 3), R @ v rotates cam→world
-    # R⁻¹ x = Rᵀ x  ⇒  cam = (p − t) @ R. Full-f32 precision: on TPU the MXU
-    # would otherwise round the 3-wide contraction through bf16, breaking
+    # R⁻¹ x = Rᵀ x  ⇒  cam = (p − t) @ R. Full-f32 precision: a GPU would
+    # otherwise round the 3-wide contraction through TF32, breaking
     # numerical parity with the reference; the matmul is tiny so this is free.
     cam = (
         jnp.einsum("nj,wjk->wnk", points, R, precision="highest")

@@ -12,12 +12,12 @@ This module provides three tiers:
    calls). Host-side, non-differentiable — exactly like the reference, which
    only ever calls it on detached tensors.
 
-2. :func:`hpr_mask_approx` — TPU-native fixed-shape approximation: every
+2. :func:`hpr_mask_approx` — on-device fixed-shape approximation: every
    point pursues a witness direction for the hull support function, refined
    per pass by Agmon–Motzkin relaxation against its current blocker; winners
    of the support argmax are marked visible (margin-gated against f32 ties).
-   Each pass is an (N, N) support sweep fused into its reductions on the
-   VPU, evaluated in row blocks so memory stays O(block·N). Recall ≥ 0.99 vs Qhull's visible set on the
+   Each pass is an (N, N) support sweep fused into its reductions,
+   evaluated in row blocks so memory stays O(block·N). Recall ≥ 0.99 vs Qhull's visible set on the
    sample cloud with zero false positives (tests/test_hpr.py); jittable.
 
 3. :func:`hpr_mask_soft` — differentiable relaxation of (2): replaces the
@@ -104,7 +104,7 @@ def hpr_mask_approx(
     rel_tol: float = 1e-7,
     valid: Optional[jnp.ndarray] = None,
 ) -> jnp.ndarray:
-    """TPU-native HPR visible mask by adaptive support-function pursuit
+    """On-device HPR visible mask by adaptive support-function pursuit
     (jittable).
 
     A flipped point p'ᵢ is a hull vertex (⇔ visible) iff it is the argmax of
@@ -173,14 +173,12 @@ def hpr_mask_approx(
 
         def row_block(i):
             db = jax.lax.dynamic_slice(d_p, (i * block, 0), (block, 3))
-            # ELEMENTWISE broadcast, not a matmul: a K=3 contraction is
-            # MXU-hostile, and a matmul output is its own fusion root on TPU
-            # so the (block, N) proj tile (165 MB at N=40k) hit HBM once per
-            # reduction — measured 35 ms/pass, exactly the traffic bound. As
-            # an elementwise producer it fuses INTO the reductions and never
-            # materializes (~10 ms/pass, 244 → 76 ms for the default 16-pass
-            # schedule; same f32 precision as the precision="highest"
-            # matmul it replaces — recall 0.9906 / 0 FP on the chip).
+            # ELEMENTWISE broadcast, not a matmul: a matmul output is its
+            # own fusion root, so the (block, N) proj tile (165 MB at N=40k)
+            # would reach device memory once per reduction. As an
+            # elementwise producer it fuses INTO the reductions and never
+            # materializes (same f32 precision as the precision="highest"
+            # matmul it replaces).
             proj = db[:, 0:1] * sx + db[:, 1:2] * sy + db[:, 2:3] * sz
             win = jnp.argmax(proj, axis=1)
             maxv = jnp.max(proj, axis=1)
@@ -262,12 +260,12 @@ def hpr_mask_soft(
     NOT a jit static arg, so different values cannot trigger spurious
     recompiles): the (N, N) dominance tile is an elementwise producer that
     XLA fuses into the logsumexp, so no blocking is needed to bound memory —
-    and the previous ``lax.map`` blocking crashed this environment's TPU
-    compiler when TRANSPOSED (the gradient) past ~10 blocks, while the fused
-    unblocked form compiles and runs fwd+bwd at 40k points (verified on
-    chip). Fusion is verified on TPU; on other backends very large N may
-    materialize O(N²) — soft HPR is O(N²) compute regardless, so cap N
-    (~50k) either way.
+    and the fused unblocked form compiles and runs fwd+bwd at 40k points.
+    Whether XLA fuses the tile on a given backend shows in
+    ``compiled.memory_analysis()`` (chip_smoke.py prints it for the binned
+    trajectory step); where it does not, very large N may materialize
+    O(N²) — soft HPR is O(N²) compute regardless, so cap N (~50k) either
+    way.
     """
     del block
     n = points.shape[0]
@@ -311,12 +309,10 @@ def hpr_mask_soft(
 # custom-VJP sort helpers for hpr_mask_soft_binned (and its sharded variant)
 #
 # JAX's built-in lax.sort VJP transposes the implicit gather into a
-# scatter-add; on TPU 1D scatters serialize row-by-row (~60 ns/row,
-# CLAUDE.md) so each 256k-point sort operand cost ~10 ms in the backward.
-# The helpers below instead un-permute cotangents with ONE stable co-sort
-# (sort permutations depend only on the keys, so re-sorting by the saved
-# perm / original key reproduces the exact forward permutation): measured
-# 105 -> 72 ms for the full 256k gradient on chip. Gradients agree with
+# scatter-add over every sort operand. The helpers below instead un-permute
+# cotangents by the saved perm (one write per row, :func:`_unsort`) or
+# re-apply the forward permutation with one stable co-sort on the original
+# key (sort permutations depend only on the keys). Gradients agree with
 # autodiff-through-sort bit-exactly, ties included (a stable sort's
 # transpose IS the inverse of the forward permutation).
 #
@@ -326,17 +322,34 @@ def hpr_mask_soft(
 # ---------------------------------------------------------------------------
 
 
+def _unsort(perm, x, dimension: int = 0):
+    """Canonical-order copy of sorted-order ``x``: the row at sorted
+    position ``p`` along ``dimension`` goes to row ``perm[p]``.
+
+    ``perm`` is a permutation, so this is a scatter that writes every row
+    exactly once. (Sorting ``x`` by ``perm`` gives the same result, but
+    XLA's GPU pipeline rewrites a sort keyed by a provable permutation into
+    a scatter whose update computation it mistypes when the values are not
+    int32: the HLO verifier then rejects the program.)"""
+    perm = jnp.moveaxis(perm, dimension, -1)
+    x = jnp.moveaxis(x, dimension, -1)
+    batch = tuple(i[..., None] for i in jnp.indices(perm.shape[:-1], sparse=True))
+    out = jnp.zeros_like(x).at[batch + (perm,)].set(x, unique_indices=True)
+    return jnp.moveaxis(out, -1, dimension)
+
+
 @lru_cache(maxsize=None)
 def make_cosort(n_diff: int, n_aux: int, dimension: int = 0):
-    """Build a scatter-free multi-operand sort-by-key with a custom VJP.
+    """Build a multi-operand sort-by-key with a custom VJP.
 
     The returned function ``cosort(key, *diff_ops, *aux_ops)`` stable-sorts
     all operands along ``dimension`` by the integer ``key`` alone and
     returns ``(key_sorted, *diff_sorted, *aux_sorted, perm)`` where
     ``perm[p]`` is the canonical index landing at sorted position ``p``.
     Gradients flow to the ``n_diff`` leading operands only; the backward
-    drops cotangents back to canonical order with one stable co-sort on the
-    saved ``perm`` — never lax.sort's scatter-add transpose. Reverse-mode
+    drops cotangents back to canonical order by the saved ``perm``
+    (:func:`_unsort`) — never lax.sort's scatter-add transpose over every
+    operand. Reverse-mode
     only (custom_vjp): forward-mode autodiff through it raises.
     """
 
@@ -355,13 +368,11 @@ def make_cosort(n_diff: int, n_aux: int, dimension: int = 0):
         return sorted_, perm
 
     def bwd(perm, cots):
-        # forward put canonical row perm[p] at sorted position p; sorting
-        # the sorted-order cotangents by perm drops each back to its
-        # canonical row
+        # forward put canonical row perm[p] at sorted position p; the
+        # sorted-order cotangents drop back to their canonical rows
         cdiff = cots[1:1 + n_diff]
-        unsorted = jax.lax.sort((perm, *cdiff), num_keys=1,
-                                dimension=dimension)
-        return (None, *unsorted[1:], *([None] * n_aux))
+        unsorted = [_unsort(perm, c, dimension) for c in cdiff]
+        return (None, *unsorted, *([None] * n_aux))
 
     cosort.defvjp(fwd, bwd)
     return cosort
@@ -404,8 +415,7 @@ def _unpermute(key, perm, x):
     """Map sorted-order ``x`` back to canonical order (perm from
     :func:`_cosort`). Backward re-applies the forward permutation by
     co-sorting the cotangent on the original ``key``."""
-    _, out = jax.lax.sort((perm, x), num_keys=1)
-    return out
+    return _unsort(perm, x)
 
 
 def _unpermute_fwd(key, perm, x):
@@ -521,15 +531,14 @@ def hpr_mask_soft_binned(
     softmaxⱼ cosθᵢⱼ·ρⱼ)) — but each point only competes against members of
     its own angular bin (see :func:`_binned_grids`: the coverer is always
     within ~θ_max of radial, so far-angle pairs contribute only sigmoid
-    tail mass). Layout is TPU-shaped end to end:
+    tail mass). Layout, end to end:
 
     - one sort per grid by (bin, ‖p‖): bin members become CONTIGUOUS with
       the closest (strongest-covering, largest ρ) members first;
     - a scan over fixed-size query tiles: each tile is a ``dynamic_slice``
       of ``cap`` consecutive sorted queries against the first ``cap``
       members of their bin — contiguous slices, so forward AND backward
-      lower to dynamic(-update)-slice, never a row scatter (60 ns/row
-      serialized on TPU, CLAUDE.md);
+      lower to dynamic(-update)-slice, never a row scatter;
     - per-grid soft maxima combine by elementwise max (union lower bound,
       under-counts duplicated pairs by ≤ ln4/β — below f32 noise).
 
@@ -547,7 +556,7 @@ def hpr_mask_soft_binned(
     ``valid`` follows the package convention: padded points contribute
     nothing and report 0. Returns (N,) visibility in (0, 1).
 
-    Reverse-mode only: the scatter-free sort helpers are custom_vjp, so
+    Reverse-mode only: the sort helpers are custom_vjp, so
     jax.jvp/jacfwd through this kernel (or any soft_hpr loss built on it)
     raises; use :func:`hpr_mask_soft` where forward-mode is needed.
     """
@@ -574,19 +583,18 @@ def hpr_mask_soft_binned(
     for grid in grids:
         # sort by (bin, distance): closest members of each bin first
         key, frac_bits, n_bins = _grid_bin_key(grid, lat, az, norms, scale, v)
-        # ONE multi-operand sort carries the data along with the key —
-        # separate 256k-row gathers after an argsort measured ~10 ms EACH
-        # on the chip (row-granular), ~3x the sort itself. The bin column
+        # ONE multi-operand sort carries the data along with the key
+        # instead of a row gather per column after an argsort. The bin column
         # is not carried: it is recovered exactly from the sorted key by
         # shifting the distance bits back out. _cosort's custom VJP keeps
-        # the backward scatter-free too.
+        # the backward to one row write per operand.
         key_s, u0_s, u1_s, u2_s, rho_s, perm = _cosort(
             key, u[:, 0], u[:, 1], u[:, 2], rho)
         bin_s = key_s >> frac_bits
         u_s = jnp.stack([u0_s, u1_s, u2_s], axis=1)
 
         # bins are sorted: member counts come from binary search, not a
-        # bincount (which lowers to a serialized row scatter on TPU)
+        # bincount (which lowers to a row scatter)
         edges = jnp.searchsorted(bin_s, jnp.arange(n_bins + 1, dtype=bin_s.dtype))
         counts = edges[1:] - edges[:-1]
         starts = edges[:-1]
@@ -603,8 +611,8 @@ def hpr_mask_soft_binned(
                  and (2 * n) < (1 << frac_bits))
         if strat:
             # rank-in-bin WITHOUT a searchsorted over all n rows (that
-            # lowers to ~log n full-array gather passes on TPU — measured
-            # ~100+ ms at 256k): segment starts via one cummax pass
+            # lowers to ~log n full-array gather passes): segment starts
+            # via one cummax pass
             iota = jnp.arange(n, dtype=jnp.int32)
             seg_first = jnp.concatenate(
                 [jnp.ones((1,), bool), bin_s[1:] != bin_s[:-1]])
@@ -659,8 +667,8 @@ def hpr_mask_soft_binned(
             ci = jnp.where(deep,
                            jax.lax.dynamic_slice(cov_pos, (coff,), (cap,)),
                            coff + jnp.arange(cap))
-            # elementwise broadcast (K=3 matmul is MXU-hostile; fuses into
-            # the logsumexp like the dense path)
+            # elementwise broadcast (a K=3 contraction fuses into the
+            # logsumexp like the dense path; a matmul would not)
             cos = (qu[:, 0:1] * cu[None, :, 0] + qu[:, 1:2] * cu[None, :, 1]
                    + qu[:, 2:3] * cu[None, :, 2])
             pair_ok = ((cbin[None, :] == b)
@@ -685,10 +693,8 @@ def hpr_mask_soft_binned(
         smax_g, _ = jax.lax.scan(
             body, smax_g, (tile_bin, tile_qoff, tile_coff, tile_ok,
                            tile_deep))
-        # un-permute by sorting (perm, smax_g): perm is a permutation of
-        # iota, so the co-sorted smax lands in canonical order. One 2-op
-        # sort (~1.3 ms at 256k) replaces the old inv_perm sort PLUS a 1D
-        # gather (~2.9 ms, scatter transpose in backward).
+        # un-permute by the saved perm: one write per row, no inverse
+        # permutation and no gather (whose transpose is a scatter-add).
         smax_c = _unpermute(key, perm, smax_g)
         smax = jnp.maximum(smax, smax_c)
 

@@ -81,7 +81,7 @@ def combined_coverage(
     Returns (per_point_coverage (N,), per_camera_mean (C,)): coverage is the
     log-odds fusion of the per-camera smooth scores (same OctoMap-style
     update the trajectory model applies along time, applied across cameras) —
-    the TPU-native replacement for combining six serial callbacks.
+    one batched replacement for combining six serial callbacks.
     """
     s = multicam_scores(
         points, cam_quats, cam_trans, K, img_width, img_height,

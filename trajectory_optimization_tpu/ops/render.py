@@ -13,9 +13,7 @@ Algorithm (two scatter passes, fixed shapes, jittable):
      equals the z-buffer entry (ties are benign — same depth, one color
      wins deterministically per XLA scatter ordering).
 
-Scatters serialize on TPU but this is a visualization path, not the
-optimization hot loop; at 40k points × 9-px footprints it renders in
-milliseconds. The footprint is capped at ``max_radius_px`` to bound work.
+This is a visualization path, not the optimization hot loop. The footprint is capped at ``max_radius_px`` to bound work.
 """
 from __future__ import annotations
 

@@ -3,13 +3,12 @@
 Computes the (W, N) smooth visibility scores dist·fov for W camera poses
 over N points. Numerically equivalent to composing
 ``to_camera_frame`` + ``dist_mask`` + ``fov_mask`` (ops.geometry), but laid
-out for the TPU VPU:
+out for fused elementwise evaluation:
 
   * coordinates live as separate (W, N) planes — the AoS (W, N, 3) layout
-    would put 3 on the 128-lane minor dimension and waste 125/128 of every
-    vector register;
+    would put 3 on the minor dimension and stride every vector access;
   * the world→camera rotation is 9 broadcast FMAs per plane instead of a
-    K=3 matmul (the MXU cannot help with a 3-deep contraction);
+    K=3 matmul (a matrix unit cannot help with a 3-deep contraction);
   * the distance Gaussian uses d²/σ² directly — no sqrt, so the r=0
     singularity of the norm gradient never exists;
   * everything fuses into a single elementwise XLA kernel per pass: N·W·~40

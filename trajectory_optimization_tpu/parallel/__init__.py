@@ -4,7 +4,6 @@ from trajectory_optimization_tpu.parallel.sharded import (
     shard_points,
     shardmap_visibility,
 )
-from trajectory_optimization_tpu.parallel.sharded_pallas import sharded_fused_lo_sum
 from trajectory_optimization_tpu.parallel.hpr_sharded import (
     hpr_mask_soft_binned_sharded,
 )
@@ -44,6 +43,5 @@ __all__ = [
     "make_sharded_train_step",
     "shard_points",
     "shardmap_visibility",
-    "sharded_fused_lo_sum",
     "hpr_mask_soft_binned_sharded",
 ]

@@ -5,7 +5,7 @@ Extends :func:`trajectory_optimization_tpu.ops.hpr.hpr_mask_soft_binned`
 ``/root/reference/src/tools.py:61-62``) across a device mesh. The reference
 is single-GPU and its Qhull HPR is CPU-only and non-differentiable
 (``src/tools.py:56-85``); here the 1M-point north-star cloud can be
-occlusion-gated differentiably with the point axis sharded over ICI.
+occlusion-gated differentiably with the point axis sharded over devices.
 
 SPMD design (no global sort, no cross-chip scatter):
 
@@ -22,10 +22,10 @@ SPMD design (no global sort, no cross-chip scatter):
 - collectives: one scalar ``all_gather``+max for radius/scale (NOT
   ``lax.pmax`` — it has no differentiation rule), then the candidate
   tables' ``all_gather``s per grid (key/u×3/rho/gid/ok columns,
-  ~n_bins·cap·7 words ≈ a few MB total, rides ICI). Gradients flow back
+  ~n_bins·cap·7 words ≈ a few MB total). Gradients flow back
   through the all_gathers as ``psum_scatter``s placed by shard_map's
   transpose; everything else differentiates locally (the local sort uses
-  the same scatter-free co-sort custom VJP as the single-chip kernel).
+  the same sort custom VJP as the single-chip kernel).
 
 Agreement with the single-chip kernel is pinned in
 ``tests/test_hpr_sharded.py`` on the 8-virtual-device CPU mesh, gradients
@@ -55,14 +55,14 @@ from ..ops.numerics import safe_norm
 __all__ = ["hpr_mask_soft_binned_sharded"]
 
 
-# Both sorts share ops.hpr.make_cosort — the scatter-free custom-VJP
+# Both sorts share ops.hpr.make_cosort — the custom-VJP
 # sort-by-key (reverse-mode only; see that factory's docstring):
 #
 # - _cosort_gid: the local layout sort, carrying the GLOBAL point id as a
 #   gradient-free extra operand (self-exclusion across shards);
 # - _cosort_merge: the batched (dimension=1) merge of the gathered
 #   candidate tables — autodiff through lax.sort would transpose to a
-#   row-serialized scatter-add on TPU. Bit-exactness vs autodiff is pinned
+#   row scatter-add. Bit-exactness vs autodiff is pinned
 #   in tests/test_hpr_sharded.py::test_merge_cosort_vjp_matches_sort_autodiff.
 _cosort_gid = make_cosort(4, 1)     # (key, u0, u1, u2, rho, gid)
 _cosort_merge = make_cosort(4, 2, dimension=1)  # (key, u×3, rho, gid, ok)
@@ -246,7 +246,7 @@ def _local_mask(points_l, valid_l, gid0, *, r_param, sharpness, tau, cap,
                 # single-chip layout); deeper → the stratified columns.
                 # The rank test is ONE scalar compare against the bin's
                 # cap_g-th merged key (not a searchsorted — that lowers to
-                # log-m gather passes per tile on TPU); key ties at the
+                # log-m gather passes per tile); key ties at the
                 # boundary fall on one side, the documented quantized-key
                 # tie class.
                 qk = jax.lax.dynamic_slice(key_s, (qoff,), (cap_l,))

@@ -5,7 +5,7 @@ jax.sharding over a Mesh. The natural parallel axes of this workload:
 
   * ``pts`` — the point-cloud axis (the 1M-point north star): sharded like
     sequence/data parallelism; global reductions (per-waypoint min/max, mean
-    rewards) become ICI collectives inserted by GSPMD or written explicitly
+    rewards) become collectives inserted by GSPMD or written explicitly
     with shard_map (see sharded.py).
   * ``wps`` — the waypoint batch axis: sharded like model parallelism for the
     (W, N) visibility evaluation; trajectory regularizers need neighbor

@@ -1,18 +1,16 @@
-"""Multi-host (DCN) scale-out helpers.
+"""Multi-host scale-out helpers.
 
-For clouds beyond one host's chips: initialize jax.distributed, build a
-(hosts × local-chips) mesh with the point axis spanning DCN and the waypoint
-axis staying intra-host (ICI), and shard per-host cloud slices with
+For clouds beyond one host's devices: initialize jax.distributed, build a
+(hosts × local-devices) mesh with the point axis spanning hosts and the
+waypoint axis staying intra-host, and shard per-host cloud slices with
 make_array_from_process_local_data. The per-waypoint min/max and mean-reward
-all-reduces then ride DCN once per step (a few KB — latency-, not
-bandwidth-bound), while all heavy elementwise work stays local.
+all-reduces then cross the host network once per step (a few KB — latency-,
+not bandwidth-bound), while all heavy elementwise work stays local.
 
-No multi-host TPU exists in this environment (single chip), but the whole
-software path is exercised for real in tests/test_multihost_process.py: two
-spawned processes, jax.distributed.initialize, cross-process Gloo
-collectives (the CPU stand-in for DCN), and the full sharded-Pallas train
-step matching the single-device result. Only the physical DCN fabric is
-untested here.
+The software path is exercised for real in tests/test_multihost_process.py:
+two spawned processes, jax.distributed.initialize, cross-process Gloo
+collectives (the CPU stand-in for NCCL), and the full sharded train step
+matching the single-device result.
 """
 from __future__ import annotations
 
@@ -46,9 +44,9 @@ def initialize_distributed(
 def make_multihost_mesh(*, wps: int = 1) -> Mesh:
     """('wps', 'pts') mesh over ALL processes' devices.
 
-    Device order puts each host's chips contiguous along 'pts', so the point
-    axis shards host-locally first and DCN traffic is limited to the
-    reduction collectives.
+    Device order puts each host's devices contiguous along 'pts', so the
+    point axis shards host-locally first and traffic between hosts is
+    limited to the reduction collectives.
     """
     devices = np.asarray(jax.devices())
     n = len(devices)

@@ -16,7 +16,7 @@ Everything lives in ONE shard_map (one jit, no per-step host round trips):
 - the differentiable binned-HPR mask comes from
   :func:`~trajectory_optimization_tpu.parallel.hpr_sharded._local_mask`
   (per-shard bin+sort, one fixed-size candidate-table ``all_gather`` per
-  grid over ICI — see that module's docstring for the SPMD design);
+  grid — see that module's docstring for the SPMD design);
 - the scalar loss 1/(Σ mask + eps) closes with a single ``psum``.
 
 Gradients flow through the whole composition (shard_map transposes the

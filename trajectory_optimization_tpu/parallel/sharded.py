@@ -5,16 +5,14 @@ Two complementary paths:
 1. :func:`make_sharded_train_step` — the production path. One jitted
    grad+Adam update with sharding annotations on the inputs; GSPMD
    propagates the shardings through the batched visibility evaluation and
-   inserts the ICI collectives (all-reduce for the per-waypoint min/max and
+   inserts the collectives (all-reduce for the per-waypoint min/max and
    the mean-reward sum, collective-permute for the trajectory regularizers).
-   This is the TPU-native replacement for what the reference cannot do at
-   all: jointly optimizing against clouds larger than one device's memory
-   (SURVEY.md §2c, BASELINE north star).
+   This replaces what the reference cannot do at all: jointly optimizing
+   against clouds larger than one device's memory (SURVEY.md §2c).
 
 2. :func:`shardmap_visibility` — an explicit shard_map implementation of the
    per-waypoint observation log-odds with hand-placed ``lax.pmin/pmax/psum``.
-   Used to validate the GSPMD path numerically and as the template for a
-   future Pallas-with-RDMA kernel.
+   Used to validate the GSPMD path numerically.
 """
 from __future__ import annotations
 
@@ -29,13 +27,11 @@ from jax.sharding import Mesh, PartitionSpec as P
 from trajectory_optimization_tpu.models.traj import (
     TrajProblem,
     logodds_from_minmax,
-    traj_criterion,
     traj_forward,
 )
 from trajectory_optimization_tpu.opt.engine import OptimizerConfig, make_optimizer
 from trajectory_optimization_tpu.ops.scores import waypoint_scores
 from trajectory_optimization_tpu.parallel.mesh import points_sharding, replicated
-from trajectory_optimization_tpu.parallel.sharded_pallas import sharded_fused_lo_sum
 
 
 def shard_points(mesh: Mesh, points, valid=None):
@@ -47,43 +43,6 @@ def shard_points(mesh: Mesh, points, valid=None):
     if valid is None:
         return points
     return points, jax.device_put(jnp.asarray(valid), ps)
-
-
-def traj_forward_sharded(
-    mesh: Mesh,
-    params,
-    points,
-    K,
-    poses0,
-    quats0,
-    problem: TrajProblem,
-    *,
-    valid=None,
-):
-    """traj_forward with the visibility log-odds computed by the manually
-    sharded fused-Pallas kernel: each device runs the Pallas passes on its
-    point slice, only (W,)-sized quantities cross ICI (parallel.sharded_pallas),
-    and the criterion tail runs on replicated waypoint params.
-
-    Numerically matches traj_forward (tests/test_sharded_pallas.py). N must
-    be a multiple of sharded_pallas.pad_multiple(mesh).
-    """
-    poses, quats = params["poses"], params["quats"]
-    sel = slice(None, None, problem.wps_step)
-    lo_sum = sharded_fused_lo_sum(
-        mesh,
-        points,
-        quats[sel],
-        poses[sel],
-        K,
-        problem.img_width,
-        problem.img_height,
-        min_dist=problem.min_dist,
-        max_dist=problem.max_dist,
-        eps=problem.eps,
-        valid=valid,
-    )
-    return traj_criterion(lo_sum, params, poses0, problem, valid=valid)
 
 
 def make_sharded_train_step(
@@ -99,15 +58,6 @@ def make_sharded_train_step(
     bandwidth trade; the (W, N) visibility intermediate is sharded along
     'pts' by propagation).
 
-    Backends (problem.backend):
-      'pallas' / 'auto' off-CPU — the production multi-chip hot loop: the
-        manually sharded fused-Pallas kernel via :func:`traj_forward_sharded`
-        (point data never leaves its chip; hand-written two-pass backward).
-        Requires N % sharded_pallas.pad_multiple(mesh) == 0.
-      'xla' / 'auto' on CPU — GSPMD propagates shardings through the batched
-        XLA evaluation (no shape constraint; also the fallback for quick
-        experiments).
-
     step_fn(params, opt_state, points, valid, K, poses0, quats0)
       -> (params, opt_state, loss, scalar_aux)
     """
@@ -115,32 +65,8 @@ def make_sharded_train_step(
     rep = replicated(mesh)
     ps = points_sharding(mesh)
 
-    backend = problem.backend
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() != "cpu" else "xla"
-
-    if backend == "pallas" and problem.soft_hpr:
-        # the fused-Pallas kernel has no occlusion input; silently training
-        # the non-occlusion loss would be a lie. The occlusion-aware
-        # multi-chip step lives in parallel.traj_sharded.
-        raise ValueError(
-            "make_sharded_train_step's 'pallas' backend does not support "
-            "soft_hpr; use parallel.traj_sharded.make_sharded_traj_step "
-            "(occlusion-aware) or backend='xla'."
-        )
-
-    if backend == "pallas":
-        def loss_fn(params, points, valid, K, poses0, quats0):
-            return traj_forward_sharded(
-                mesh, params, points, K, poses0, quats0, problem, valid=valid
-            )
-    else:
-        import dataclasses as _dc
-
-        problem = _dc.replace(problem, backend="xla")
-
-        def loss_fn(params, points, valid, K, poses0, quats0):
-            return traj_forward(params, points, K, poses0, quats0, problem, valid=valid)
+    def loss_fn(params, points, valid, K, poses0, quats0):
+        return traj_forward(params, points, K, poses0, quats0, problem, valid=valid)
 
     def init_fn(params):
         return jax.device_put(tx.init(params), rep)
@@ -176,7 +102,7 @@ def shardmap_visibility(
 
     Each device holds an N/D slice of the cloud; the per-waypoint score
     normalization needs the *global* min/max over points, which here are
-    explicit ``lax.pmin``/``lax.pmax`` over the 'pts' mesh axis riding ICI.
+    explicit ``lax.pmin``/``lax.pmax`` over the 'pts' mesh axis.
     Returns the (N,) rewards, sharded along 'pts'.
 
     Numerically identical to the single-device models.traj path (tested on
@@ -200,7 +126,7 @@ def shardmap_visibility(
         big = jnp.asarray(jnp.finfo(p.dtype).max, p.dtype)
         pmin_l = jnp.min(jnp.where(valid_l > 0, p, big), axis=-1)
         pmax_l = jnp.max(jnp.where(valid_l > 0, p, -big), axis=-1)
-        pmin = jax.lax.pmin(pmin_l, "pts")[:, None]  # ICI all-reduce(min)
+        pmin = jax.lax.pmin(pmin_l, "pts")[:, None]  # all-reduce(min)
         pmax = jax.lax.pmax(pmax_l, "pts")[:, None]
         lo = logodds_from_minmax(p, pmin, pmax, problem.eps)
         return 1.0 / (1.0 + jnp.exp(-jnp.sum(lo, axis=0)))

@@ -7,7 +7,7 @@ Composes the two flagship pieces of the occlusion-aware trajectory story
   routing refreshed every k steps, ONE fused dominance op per device step —
   the 13× win over per-step binned routing at reference scale;
 - the **('wps','pts') mesh step** (parallel.traj_sharded): waypoints and
-  cloud sharded over ICI, log-odds fused with one psum.
+  cloud sharded over the mesh, log-odds fused with one psum.
 
 The reference has neither: its trajectory model loops waypoints on host
 (`src/model.py:210-217`) and its HPR TODO (`src/tools.py:56-85`) is

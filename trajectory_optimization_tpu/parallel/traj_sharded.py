@@ -16,7 +16,7 @@ one chip; this module distributes that loss over BOTH natural axes of a
 - **point axis**: within each waypoint, the cloud is sharded over ``pts``
   and occlusion comes from the point-sharded binned-HPR body
   (:func:`~trajectory_optimization_tpu.parallel.hpr_sharded._local_mask` —
-  per-bin candidate tables, one all_gather per grid over ICI); the
+  per-bin candidate tables, one all_gather per grid); the
   min-max score normalization becomes a differentiable all_gather+min/max.
 
 Everything lives in ONE shard_map: per-shard transform + scores, sharded

@@ -16,7 +16,7 @@ Adam state and per-waypoint losses are replicated; points/valid and the
 ``problem.soft_hpr=True`` gates every waypoint's scores with the
 point-sharded differentiable binned HPR on that waypoint's camera-frame
 cloud (``parallel.hpr_sharded._local_mask`` — per-bin candidate tables,
-one all_gather per grid over ICI), scanned over waypoints with a
+one all_gather per grid), scanned over waypoints with a
 checkpointed body exactly like the single-chip ``wps_forward`` and the
 trajectory step ``parallel.traj_sharded``. Reverse-mode only in that case
 (the binned kernel's custom-VJP sorts).

@@ -57,7 +57,7 @@ class TrajOptNodeConfig:
     # step — use a coarser vis_wps_dist or fewer opt_steps for rate budgets.
     use_soft_hpr: bool = False
     # >1 keeps d-1 callbacks in flight (async dispatch + copy_to_host_async),
-    # overlapping link transfers across messages; outputs lag by up to d-1.
+    # overlapping transfers across messages; outputs lag by up to d-1.
     # 1 = the reference's synchronous publish-before-return semantics.
     pipeline_depth: int = 1
 
@@ -70,7 +70,7 @@ class PointsProcessorConfig:
     cam_info_topics: Tuple[str, ...] = ("/viz/camera_0/camera_info",)
     frustum_min_dist: float = 1.0
     frustum_max_dist: float = 15.0
-    hpr_backend: str = "approx"  # 'exact' (Qhull) | 'approx' (TPU) | 'none'
+    hpr_backend: str = "approx"  # 'exact' (Qhull) | 'approx' (on device) | 'none'
     render: bool = True
     # TransformListener role: the node's FrameGraph ingests these topics
     # (reference constructs a tf.TransformListener, `src/pc_processor.py:57`)
